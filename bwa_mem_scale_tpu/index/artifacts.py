@@ -20,8 +20,8 @@ import numpy as np
 
 from .bntseq import BntSeq, Annotation, Hole
 
-# Our checkpoint block is 32 bp (uint32 one-hot masks — TPU has no native
-# 64-bit popcount; the reference uses 64 bp, src/FMI_search.h:59-62).
+# Our checkpoint block is 32 bp (uint32 one-hot masks, popcounted in
+# int32 lanes; the reference uses 64 bp, src/FMI_search.h:59-62).
 CP_BLOCK_SIZE = 32
 CP_SHIFT = 5
 CP_MASK = 31

@@ -1,6 +1,6 @@
 """Reference-genome metadata and 2-bit packed sequence ("bntseq" layer).
 
-TPU-native re-design of the reference's bntseq component
+Re-design of the reference's bntseq component
 (reference: src/bntseq.{h,cpp}): FASTA -> per-contig annotations
 (name/offset/length), ambiguity ("hole") records, and the numeric base
 array. We keep the byte-per-base int8 array as the primary in-memory form

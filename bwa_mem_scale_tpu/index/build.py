@@ -1,6 +1,6 @@
 """FM-index construction (offline toolchain).
 
-Builds the TPU-native index artifact set from a FASTA, the counterpart of
+Builds the device index artifact set from a FASTA, the counterpart of
 the reference's ``bwa index`` path (reference: src/bwtindex.cpp:232,
 src/FMI_search.cpp:773-870 build_index/build_fm_index):
 
@@ -10,7 +10,7 @@ src/FMI_search.cpp:773-870 build_index/build_fm_index):
   cp_occ= checkpointed occurrence blocks: per 32-bp block, the exclusive
           cumulative count of each base plus a one-hot uint32 bitmask per
           base (bit 31 = first position in block). occ(p, c) is then a
-          single gather + masked popcount — the TPU-friendly form of the
+          single gather + masked popcount — the batched form of the
           reference's 64-bp GET_OCC (src/FMI_search.h:76-83).
   SA samples = every 2^SA_COMPX-th SA entry (src/macro.h:81-82).
 

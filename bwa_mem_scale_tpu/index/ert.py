@@ -1,4 +1,4 @@
-"""ERT — Enumerated Radix Tree index, TPU-native formulation.
+"""ERT — Enumerated Radix Tree index, device formulation.
 
 The reference's ERT (src/ertindex.cpp: per-15-mer byte-serialized
 radix trees with EMPTY/LEAF/UNIFORM/DIVERGE nodes and 40-bit reference
@@ -6,7 +6,7 @@ pointers, walked by a sequential byte decoder in src/ertseeding.cpp)
 exists to replace cache-hostile FM-index occ walks with pointer-light
 tree descent and direct reference positions at the leaves.
 
-TPU-native re-design: since this framework's FM bi-interval `k` is
+Device re-design: since this framework's FM bi-interval `k` is
 exactly the suffix-array range start, the ERT becomes a suffix TRIE
 over the fw+rc text whose nodes carry their SA ranges:
 

@@ -1,11 +1,11 @@
 """2-step (bigram) FM-index checkpoint table — trade HBM row width
 for dependent-gather depth.
 
-The seeding machines' cost on TPU is the *number of sequential
-checkpoint-row gathers* (each tick is latency-bound, ~0.4-0.9 ms for
-thousands of lanes; row width is nearly free). The reference attacks
+The seeding machines' cost is the *number of sequential
+checkpoint-row gathers* (each tick is one dependent, latency-bound
+fetch for thousands of lanes). The reference attacks
 FM-walk cost with cache-resident helper tables (SMEM_ACCEL,
-src/FMI_search.cpp:1414-1463); the TPU-native equivalent is the
+src/FMI_search.cpp:1414-1463); the device equivalent is the
 n-step FM-index (Chacon et al.): checkpoint occ counts for all 16
 BWT *bigrams* B2[i] = (BWT[i], BWT[LF(i)]) let one row gather extend
 a bi-interval by TWO bases, halving the tick count of every forward

@@ -8,7 +8,7 @@ multi-location lists split into fw/rc sub-lists
 (src/perfect.h:93-186, builder src/perfect_index.cpp:1317-1437,
 probe src/perfect_map.cpp:583-629).
 
-TPU-native formulation: the table is four flat arrays (location,
+Device formulation: the table is four flat arrays (location,
 32-bit hash fingerprint, canonical-orientation bit, location count)
 under linear probing, so the device lookup is a handful of row
 gathers + one reference-window compare per read (ops/emf.py).

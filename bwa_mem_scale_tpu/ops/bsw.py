@@ -1,6 +1,6 @@
 """Batched banded Smith-Waterman extension on device.
 
-TPU-native formulation of the reference's BSW kernel family
+Array formulation of the reference's BSW kernel family
 (scalarBandedSWA spec src/bandedSWA.cpp:116-238; AVX512 inter-sequence
 kernels :713+): one alignment pair per vector lane, the DP row loop
 vectorized across both the pair axis and the query axis. The row-wise
@@ -58,7 +58,7 @@ def banded_swa_batch(qs, q_lens, ts, t_lens, h0, w: int,
     # The scoring matrix is always bwa's fill_scmat shape (match a on
     # the diagonal, -b off it, -1 vs N; src/bwa.cpp:98-110) — compute
     # the query profile arithmetically instead of a [P, QL] table
-    # gather per row (gathers are the slow primitive on TPU).
+    # gather per row.
     import numpy as _np
     mat_np = _np.asarray(mat)
     mx = int(mat_np.max())
@@ -175,8 +175,7 @@ def banded_swa_batch(qs, q_lens, ts, t_lens, h0, w: int,
         new_e = jnp.where(upd_e, jnp.concatenate(
             [E_next, jnp.zeros((P, 1), i32)], axis=1)[:, : QL + 1],
             st.eh_e[:, : QL + 1])
-        # per-lane end-column writes as masked selects (scatters are
-        # a slow path on TPU)
+        # per-lane end-column writes as masked selects, not scatters
         end_c = jnp.clip(end, 0, QL)
         at_end = colq == end_c[:, None]
         new_e = jnp.where(at_end, 0, new_e)
@@ -252,16 +251,12 @@ def banded_swa_batch(qs, q_lens, ts, t_lens, h0, w: int,
     # Note: i is per-pair but advances in lockstep; alive lanes with
     # shorter targets retire early via the (i < t_lens) mask.
     #
-    # The row body is gather-free (pure VPU work), so on this
-    # platform its cost is dominated by per-iteration while_loop
-    # overhead, not math — process several target rows per iteration
-    # (a pure unroll: every row update is alive-masked, so extra
-    # sub-steps after a lane retires are no-ops).
-    import os as _os
-    unroll = max(int(_os.environ.get("BWATPU_BSW_UNROLL", 4)), 1)
-
+    # Several target rows per loop iteration (a pure unroll: every
+    # row update is alive-masked, so extra sub-steps after a lane
+    # retires are no-ops). This kernel serves the CPU; the GPU runs
+    # ops/bsw_pallas.py.
     def body_u(s):
-        for _ in range(unroll):
+        for _ in range(4):
             s = body(s)
         return s
 

@@ -1,21 +1,29 @@
-"""Pallas TPU kernel for batched banded Smith-Waterman extension.
+"""Pallas kernel (Triton route) for batched banded Smith-Waterman
+extension on an NVIDIA GPU.
 
-Same semantics as ops/bsw.banded_swa_batch (the scalar spec is the
-reference's scalarBandedSWA, src/bandedSWA.cpp:116-238) but the DP
-row loop runs entirely in VMEM: the jnp while-loop version pays ~15
-HBM round trips over [P, QL] state per target row, which made BSW the
-largest slice of the extend program (0.19 s/batch at 16 k pairs).
-Here each grid step owns a block of BP pairs, holds the two eh state
-planes as loop-carried VMEM values, and iterates only until its own
-lanes are all retired — pairs are pre-sorted by target length by the
-wrapper (the lane-coherence sort of sortPairsLen[Ext],
-src/bwamem.cpp:2667-2805), so short blocks exit after a handful of
-rows instead of marching to the global max.
+Same semantics as ops/bsw.banded_swa_batch, bit for bit; the scalar
+spec for both is the reference's scalarBandedSWA
+(src/bandedSWA.cpp:116-238), ported in ref/bsw.scalar_banded_swa.
 
-Layout is transposed vs the jnp kernel: [query_axis, pair_lanes] —
-the per-row target byte broadcasts along the major axis for free, the
-row-wise prefix-max runs as log2 static sublane shifts, and per-lane
-scalars live as [1, BP] rows that use all 128 VPU lanes.
+The jnp kernel runs one `lax.while_loop` iteration per target row over
+[P, QL] H and E planes: XLA cannot fuse across iterations, so every
+row re-reads and re-writes both planes from device memory in several
+kernel launches. Here one program owns a block of BP pairs, one pair
+per lane (bwa-mem2's inter-sequence SIMD layout), and runs the whole
+DP inside the program:
+
+- the target-row loop runs until every lane of the block has retired
+  (z-drop, zero row or end of target); the wrapper sorts pairs by
+  target length so short blocks exit early;
+- inside each row the query columns are walked in order, so H's left
+  neighbour and the F recurrence are per-lane carries, exactly as in
+  the scalar loop (no prefix-max scan, no row shift);
+- the per-lane H/E rows live in a [QL + 2, BP] scratch that the
+  program indexes by column (two extra outputs, discarded), small
+  enough to stay in L1/L2.
+
+Rows are indexed [column, lane] so every load and store of one column
+is one coalesced access across the block's lanes.
 """
 
 from __future__ import annotations
@@ -26,191 +34,143 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
 from .bsw import BswBatchResult
 
-NEG = -(1 << 30)
+_BIG = 1 << 30
+# pairs per program, one lane per pair and one warp per 32 lanes:
+# 32 measured fastest on the H100 against 64 and 128 (PERF.md)
+BLOCK = 32
 
 
-def _rup(n: int, m: int) -> int:
-    return -(-n // m) * m
-
-
-def _shift_down(x, k, fill):
-    """out[j] = x[j - k] along axis 0; rows < k get `fill`."""
-    pad = jnp.full((k,) + x.shape[1:], fill, x.dtype)
-    return jnp.concatenate([pad, x[:-k]], axis=0)
-
-
-def _cummax0(x):
-    """Running max along axis 0 (inclusive), log2 static shifts."""
-    n = x.shape[0]
-    k = 1
-    while k < n:
-        x = jnp.maximum(x, _shift_down(x, k, NEG))
-        k <<= 1
-    return x
-
-
-def _bsw_kernel(meta_ref, qs_ref, ts_ref, out_ref, *, QL, TL,
-                o_del, e_del, o_ins, e_ins, zdrop,
+def _bsw_kernel(meta_ref, qs_ref, ts_ref, out_ref, eh_h_ref, eh_e_ref, *,
+                TL, o_del, e_del, o_ins, e_ins, zdrop,
                 sc_match, sc_mis, sc_n):
-    # Every scalar constant is bound as a concrete i32: under
-    # jax_enable_x64 a Python int meeting an array in where/clip/etc.
-    # lowers as an i64 scalar, which Mosaic cannot convert (infinite
-    # _convert_helper recursion / "64-bit types are not supported").
-    i32 = jnp.int32
-    c = lambda v: jnp.int32(v)
-    QP = qs_ref.shape[0]                 # padded query rows
-    BP = qs_ref.shape[1]
+    # Every constant is an explicit int32: under jax_enable_x64 a bare
+    # Python int meeting another Python int would trace as int64.
+    c = jnp.int32
+    R = eh_h_ref.shape[0]                    # QL + 2 eh rows
+    oe_del, oe_ins = o_del + e_del, o_ins + e_ins
 
-    q_lens = meta_ref[0:1, :]            # [1, BP]
-    t_lens = meta_ref[1:2, :]
-    h0 = meta_ref[2:3, :]
-    w_p = meta_ref[3:4, :]
+    q_lens = meta_ref[0, :]                  # [BP]
+    t_lens = meta_ref[1, :]
+    h0 = meta_ref[2, :]
+    w_p = meta_ref[3, :]
+    zero = jnp.zeros_like(q_lens)
 
-    q_codes = jnp.clip(qs_ref[:, :], c(0), c(4))        # [QP, BP]
-    rowq = jax.lax.broadcasted_iota(i32, (QP, BP), 0)  # eh/DP row index
+    # -- first eh row: h0, then the decaying insertion ramp -------------
+    h1_0 = jnp.maximum(h0 - c(oe_ins), zero)
 
-    # -- first eh_h row set: h0, then the decaying insertion ramp ----
-    h1 = jnp.maximum(h0 - c(o_ins + e_ins), c(0))       # [1, BP]
-    raw = h1 - c(e_ins) * (rowq - c(1))                 # rows >= 1
-    prev_ok = (h1 - c(e_ins) * (rowq - c(2))) > c(e_ins)
-    val = jnp.where(rowq == c(0), h0,
-                    jnp.where(rowq == c(1), h1,
-                              jnp.where(prev_ok,
-                                        jnp.maximum(raw, c(0)), c(0))))
-    eh_h0 = jnp.where(rowq <= q_lens, val, c(0)).astype(i32)
-    eh_e0 = jnp.zeros((QP, BP), i32)
+    def init(j, prev):
+        v = jnp.where(j == c(0), h0,
+                      jnp.where(j == c(1), h1_0,
+                                jnp.where(prev > c(e_ins),
+                                          prev - c(e_ins), zero)))
+        eh_h_ref[j, :] = jnp.where(j <= q_lens, v, zero)
+        eh_e_ref[j, :] = zero
+        return v
 
-    zero1 = jnp.zeros((1, BP), i32)
-    st0 = (jnp.int32(0), eh_h0, eh_e0,
-           zero1, q_lens.astype(i32),                    # beg, end
-           h0.astype(i32),                               # max_sc
-           jnp.full((1, BP), -1, i32),                   # max_i
-           jnp.full((1, BP), -1, i32),                   # max_j
-           jnp.full((1, BP), -1, i32),                   # max_ie
-           jnp.full((1, BP), -1, i32),                   # gscore
-           zero1,                                        # max_off
-           # alive carried as i32: an i1 vector loop carry fails to
-           # legalize in Mosaic's scf.while lowering
-           ((t_lens > c(0)) & (q_lens > c(0))).astype(i32))
+    jax.lax.fori_loop(c(0), c(R), init, zero)
 
-    def cond(st):
-        # (an any()-style bool reduce lowers through an f64 scalar
-        # squeeze on Mosaic under x64; i32 max-reduce is supported)
-        return jnp.max(st[11]) > 0
+    def row_cond(st):
+        return jnp.max(st[-1]) > c(0)
 
-    def body(st):
-        (i, eh_h, eh_e, beg0, end0, max_sc, max_i, max_j, max_ie,
-         gscore, max_off, alive_i) = st
+    def row_body(st):
+        (i, beg0, end0, max_sc, max_i, max_j, max_ie, gscore, max_off,
+         alive_i) = st
         alive = (alive_i > c(0)) & (i < t_lens)
-        tb = jnp.clip(ts_ref[pl.ds(i, 1), :], c(0), c(4))  # [1, BP]
-        is_n = (tb == c(4)) | (q_codes == c(4))
-        qprof = jnp.where(is_n, c(sc_n),
-                          jnp.where(tb == q_codes, c(sc_match),
-                                    c(sc_mis)))
-
+        tb = ts_ref[jnp.minimum(i, c(TL - 1)), :]
+        tb = jnp.minimum(jnp.maximum(tb, zero), c(4))
         beg = jnp.maximum(beg0, i - w_p)
         end = jnp.minimum(jnp.minimum(end0, i + w_p + c(1)), q_lens)
         h1_first = jnp.where(
             beg == c(0),
-            jnp.maximum(h0 - (c(o_del) + c(e_del) * (i + c(1))), c(0)),
-            c(0))
+            jnp.maximum(h0 - (c(o_del) + c(e_del) * (i + c(1))), zero),
+            zero)
+        # columns [beg, end) are computed; column `end` receives the
+        # row's last H and a zero E (it may lie left of beg)
+        jlo = jnp.min(jnp.where(alive, jnp.minimum(beg, end), c(_BIG)))
+        jhi = jnp.max(jnp.where(alive, end, c(-1))) + c(1)
 
-        in_band = (rowq >= beg) & (rowq < end)
-        M = jnp.where(eh_h != c(0), eh_h + qprof, c(0))
-        pre = jnp.maximum(M, eh_e)
+        def col(j, cs):
+            h1, f, mrow, mj, lead, last = cs
+            act = alive & (j >= beg) & (j < end)
+            at_end = alive & (j == end)
+            m_old = eh_h_ref[j, :]               # H(i-1, j-1)
+            e = eh_e_ref[j, :]                   # E(i, j)
+            qc = jnp.minimum(jnp.maximum(qs_ref[j, :], zero), c(4))
+            sc = jnp.where((tb == c(4)) | (qc == c(4)), c(sc_n),
+                           jnp.where(tb == qc, c(sc_match), c(sc_mis)))
+            m = jnp.where(m_old != c(0), m_old + sc, zero)
+            h = jnp.maximum(jnp.maximum(m, e), f)
+            e_new = jnp.maximum(e - c(e_del),
+                                jnp.maximum(m - c(oe_del), zero))
+            f_new = jnp.maximum(f - c(e_ins),
+                                jnp.maximum(m - c(oe_ins), zero))
+            e_new = jnp.where(at_end, zero, e_new)
+            wr = act | at_end
+            eh_h_ref[j, :] = jnp.where(wr, h1, m_old)
+            eh_e_ref[j, :] = jnp.where(wr, e_new, e)
+            # band-shrink bookkeeping on the freshly written cells
+            nz = (h1 != c(0)) | (e_new != c(0))
+            lead = jnp.where(act & nz & (lead == c(_BIG)), j, lead)
+            last = jnp.where(wr & nz, j, last)
+            upd = act & (mrow <= h)              # LAST attaining column
+            mj = jnp.where(upd, j, mj)
+            mrow = jnp.where(upd, h, mrow)
+            h1 = jnp.where(act, h, h1)
+            f = jnp.where(act, f_new, f)
+            return h1, f, mrow, mj, lead, last
 
-        # F via prefix-max with gap-extension decay
-        t_ins = jnp.maximum(M - c(o_ins + e_ins), c(0))
-        keyed = jnp.where(in_band, t_ins + c(e_ins) * rowq, c(NEG))
-        run = _shift_down(_cummax0(keyed), 1, NEG)
-        f = jnp.maximum(run - c(e_ins) * (rowq - c(1)), c(0))
-        f = jnp.where(rowq == beg, c(0), f)
-
-        H = jnp.where(in_band, jnp.maximum(pre, f), c(0))
-
-        # row max + LAST attaining row
-        Hm = jnp.where(in_band, H, c(-1))
-        raw_max = jnp.max(Hm, axis=0, keepdims=True)     # [1, BP]
-        att = Hm == raw_max
-        mj_last = jnp.max(jnp.where(att, rowq, c(-1)), axis=0,
-                          keepdims=True)
-        mrow = jnp.maximum(raw_max, c(0))
-        mj = jnp.where(mrow > c(0), mj_last, c(-1))
-
-        E_next = jnp.maximum(jnp.maximum(M - c(o_del + e_del), c(0)),
-                             eh_e - c(e_del))
-
-        # write back the shifted H row / next E row on [beg, end]
-        Hsh = _shift_down(H, 1, 0)                       # [QP, BP]
-        upd_h = (rowq >= beg + c(1)) & (rowq <= end)
-        new_h = jnp.where(upd_h, Hsh, eh_h)
-        new_h = jnp.where(rowq == beg, h1_first, new_h)
-        upd_e = (rowq >= beg) & (rowq < end)
-        new_e = jnp.where(upd_e, E_next, eh_e)
-        end_c = jnp.clip(end, c(0), c(QL))
-        at_end = rowq == end_c
-        new_e = jnp.where(at_end, c(0), new_e)
-        h1_last = jnp.sum(jnp.where(at_end, Hsh, c(0)), axis=0,
-                          keepdims=True, dtype=i32)
-        h1_last = jnp.where(end > beg, h1_last, h1_first)
-        new_h = jnp.where(at_end, h1_last, new_h)
-
-        eh_h2 = jnp.where(alive, new_h, eh_h)
-        eh_e2 = jnp.where(alive, new_e, eh_e)
+        h1, _, mrow, mj, lead, last = jax.lax.fori_loop(
+            jlo, jhi, col,
+            (h1_first, zero, zero, zero - c(1), zero + c(_BIG),
+             zero - c(1)))
 
         # gscore when the band reached the query end
-        reach = alive & (end == q_lens)
-        gupd = reach & (gscore <= h1_last)
-        gscore2 = jnp.where(gupd, h1_last, gscore)
+        gupd = alive & (end == q_lens) & (gscore <= h1)
+        gscore2 = jnp.where(gupd, h1, gscore)
         max_ie2 = jnp.where(gupd, i, max_ie)
 
         brk0 = alive & (mrow == c(0))
         better = alive & ~brk0 & (mrow > max_sc)
-        off = jnp.abs(mj - i)
-        max_off2 = jnp.where(better, jnp.maximum(max_off, off),
-                             max_off)
+        off = jnp.maximum(mj - i, i - mj)
+        max_off2 = jnp.where(better, jnp.maximum(max_off, off), max_off)
         diag_i = i - max_i
         diag_j = mj - max_j
         zdelta = jnp.where(diag_i > diag_j,
                            max_sc - mrow - (diag_i - diag_j) * c(e_del),
                            max_sc - mrow - (diag_j - diag_i) * c(e_ins))
-        brkz = (alive & ~brk0 & ~better
-                & (zdelta > c(zdrop)) if zdrop > 0
-                else jnp.zeros_like(alive))
-
+        brkz = alive & ~brk0 & ~better & (zdelta > c(zdrop))
+        if zdrop <= 0:
+            brkz = alive & False
         max_sc2 = jnp.where(better, mrow, max_sc)
         max_i2 = jnp.where(better, i, max_i)
         max_j2 = jnp.where(better, mj, max_j)
 
-        # adaptive band shrink on the freshly written rows
-        zcell = (new_h == c(0)) & (new_e == c(0))
-        cand = ~zcell & (rowq >= beg) & (rowq < end)
-        lead = jnp.min(jnp.where(cand, rowq, c(1 << 30)), axis=0,
-                       keepdims=True)
-        beg2 = jnp.where(lead < c(1 << 30), lead, end)
-        cand2 = ~zcell & (rowq >= beg2) & (rowq <= end)
-        tail = jnp.max(jnp.where(cand2, rowq, c(NEG)), axis=0,
-                       keepdims=True)
-        jpos = jnp.where(tail > c(NEG), tail, beg2 - c(1))
-        end2 = jnp.minimum(jpos + c(2), q_lens)
+        # adaptive band shrink: first and last non-zero cell
+        beg2 = jnp.where(lead < c(_BIG), lead, end)
+        tail = jnp.where(last >= c(0), last, beg2 - c(1))
+        end2 = jnp.minimum(tail + c(2), q_lens)
 
         alive2 = alive & ~brk0 & ~brkz
-        beg3 = jnp.where(alive, beg2, beg0)
-        end3 = jnp.where(alive, end2, end0)
-        return (i + c(1), eh_h2, eh_e2, beg3, end3, max_sc2, max_i2,
-                max_j2, max_ie2, gscore2, max_off2,
-                alive2.astype(i32))
+        return (i + c(1), jnp.where(alive, beg2, beg0),
+                jnp.where(alive, end2, end0), max_sc2, max_i2, max_j2,
+                max_ie2, gscore2, max_off2, alive2.astype(jnp.int32))
 
-    stf = jax.lax.while_loop(cond, body, st0)
-    # one aligned 8-row store (a 6-row block's sublane dim would be
-    # unaligned): max_sc, max_j, max_i, max_ie, gscore, max_off, pad
-    out_ref[:, :] = jnp.concatenate(
-        [stf[5], stf[7], stf[6], stf[8], stf[9], stf[10],
-         jnp.zeros((2, BP), i32)], axis=0)
+    neg1 = zero - c(1)
+    live0 = ((t_lens > c(0)) & (q_lens > c(0))).astype(jnp.int32)
+    st = jax.lax.while_loop(
+        row_cond, row_body,
+        (c(0), zero, q_lens, h0, neg1, neg1, neg1, neg1, zero, live0))
+    (_, _, _, max_sc, max_i, max_j, max_ie, gscore, max_off, _) = st
+    out_ref[0, :] = max_sc
+    out_ref[1, :] = max_j
+    out_ref[2, :] = max_i
+    out_ref[3, :] = max_ie
+    out_ref[4, :] = gscore
+    out_ref[5, :] = max_off
 
 
 def _trunc_div(n, d):
@@ -220,14 +180,13 @@ def _trunc_div(n, d):
 def banded_swa_batch_pallas(qs, q_lens, ts, t_lens, h0, w: int,
                             o_del: int, e_del: int, o_ins: int,
                             e_ins: int, zdrop: int, mat,
-                            end_bonus: int = 0, block: int = 256,
-                            interpret: bool = False
-                            ) -> BswBatchResult:
+                            end_bonus: int = 0, block: int = BLOCK,
+                            interpret: bool = False) -> BswBatchResult:
     """Drop-in replacement for ops.bsw.banded_swa_batch (bit-equal).
 
-    Sorts pairs by masked target length, runs the Pallas kernel over
-    BP-lane blocks (each exits at its own longest lane), and inverse-
-    permutes the six result vectors.
+    Sorts pairs by masked target length, runs the kernel over blocks
+    of `block` lanes (each exits at its own longest lane), and
+    inverse-permutes the six result vectors.
     """
     P, QL = qs.shape
     TL = ts.shape[1]
@@ -249,48 +208,47 @@ def banded_swa_batch_pallas(qs, q_lens, ts, t_lens, h0, w: int,
                                   jnp.maximum(max_del, 1))).astype(i32)
 
     # lane-coherence sort: dead lanes (len 0) first, then by t_len
+    # (the sortPairsLen[Ext] of src/bwamem.cpp:2667-2805)
     eff_t = jnp.where((t_lens > 0) & (q_lens > 0), t_lens, 0)
     perm = jnp.argsort(eff_t).astype(i32)
 
     BP = block
-    Pp = _rup(max(P, BP), BP)
+    Pp = -(-max(P, 1) // BP) * BP
     pad = Pp - P
+    R = QL + 2
 
-    def permute(x, fill=0):
+    def permute(x):
         x = jnp.take(x, perm, axis=0)
         if pad:
-            padw = [(0, pad)] + [(0, 0)] * (x.ndim - 1)
-            x = jnp.pad(x, padw, constant_values=fill)
+            x = jnp.pad(x, [(0, pad)] + [(0, 0)] * (x.ndim - 1))
         return x
 
-    QP = _rup(QL + 2, 8)
-    TP = _rup(TL, 8)
-    qs_t = jnp.pad(permute(qs.astype(i32)),
-                   ((0, 0), (0, QP - QL))).T               # [QP, Pp]
-    ts_t = jnp.pad(permute(ts.astype(i32)),
-                   ((0, 0), (0, TP - TL))).T               # [TP, Pp]
+    qs_t = jnp.pad(permute(qs.astype(i32)), ((0, 0), (0, R - QL))).T
+    ts_t = permute(ts.astype(i32)).T                         # [TL, Pp]
     meta = jnp.stack([permute(q_lens), permute(t_lens), permute(h0),
-                      permute(w_p)], axis=0)               # [4, Pp]
+                      permute(w_p)], axis=0)                 # [4, Pp]
 
-    kern = functools.partial(_bsw_kernel, QL=QL, TL=TL,
-                             o_del=o_del, e_del=e_del, o_ins=o_ins,
-                             e_ins=e_ins, zdrop=zdrop, **sc)
-    # index maps: the constant block coordinate must be an i32 — under
-    # global jax_enable_x64 a bare Python 0 lowers as i64, which Mosaic
-    # rejects at func.return
-    imap = lambda i: (jnp.int32(0), i)
-    out = pl.pallas_call(
+    kern = functools.partial(_bsw_kernel, TL=TL, o_del=o_del,
+                             e_del=e_del, o_ins=o_ins, e_ins=e_ins,
+                             zdrop=zdrop, **sc)
+    col = lambda b: (0, b)
+    out, _, _ = pl.pallas_call(
         kern,
         grid=(Pp // BP,),
-        in_specs=[
-            pl.BlockSpec((4, BP), imap, memory_space=pltpu.VMEM),
-            pl.BlockSpec((QP, BP), imap, memory_space=pltpu.VMEM),
-            pl.BlockSpec((TP, BP), imap, memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((8, BP), imap,
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((8, Pp), jnp.int32),
+        in_specs=[pl.BlockSpec((4, BP), col),
+                  pl.BlockSpec((R, BP), col),
+                  pl.BlockSpec((TL, BP), col)],
+        out_specs=[pl.BlockSpec((8, BP), col),
+                   pl.BlockSpec((R, BP), col),
+                   pl.BlockSpec((R, BP), col)],
+        out_shape=[jax.ShapeDtypeStruct((8, Pp), i32),
+                   jax.ShapeDtypeStruct((R, Pp), i32),
+                   jax.ShapeDtypeStruct((R, Pp), i32)],
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(
+            num_warps=max(block // 32, 1), num_stages=1),
         interpret=interpret,
+        name="bsw_extend",
     )(meta, qs_t, ts_t)
 
     # inverse permutation: column r of `out` is pair perm[r]

@@ -91,9 +91,8 @@ def chain_seeds_device(bns: DeviceBns, smems, rbeg, seed_idx, coord_valid,
     BIG = jnp.asarray(np.iinfo(np.dtype(pos_dtype)).max // 4,
                       dtype=pos_dtype)
 
-    # one-hot over the small SMEM axis — take_along_axis here is a
-    # per-lane serialized row gather ([B, NC] = 1M rows at bench
-    # shapes, ~25 ms on chip; see ops/occ._take_c)
+    # one-hot over the small SMEM axis instead of take_along_axis
+    # ([B, NC] = 1M rows at bench shapes; see ops/occ._take_c)
     from .occ import _oh_take
     qbeg_all = _oh_take(smems.m, seed_idx)
     n_all = _oh_take(smems.n, seed_idx)
@@ -114,9 +113,9 @@ def chain_seeds_device(bns: DeviceBns, smems, rbeg, seed_idx, coord_valid,
 
     # every per-lane select/update below is one-hot over the small
     # C/S axes (see ops/occ._take_c): `arr[bidx, lslot]`-style indexed
-    # reads/writes lower to ~10 ns/row serial loops on TPU — at ~15
-    # of them per coordinate this loop was 54 ms of a 223 ms device
-    # stage on chip; masked one-hot selects are pure VPU work.
+    # reads/writes would be per-lane gathers and scatters; masked
+    # one-hot selects are elementwise work. (A layout chosen for the
+    # previous accelerator; not yet measured on the GPU.)
     iota_c = jnp.arange(C, dtype=jnp.int32)
     iota_s = jnp.arange(S, dtype=jnp.int32)
 
@@ -309,16 +308,26 @@ def chain_filter_device(ch: Chains, bns: DeviceBns, *, min_chain_weight: int,
 
     slot_valid = jnp.arange(C)[None, :] < ch.n[:, None]
     heavy = slot_valid & (w_by_slot >= min_chain_weight)
-    # Sort slots by weight descending (invalid last). Stable argsort on
-    # (-w); ties keep slot (creation) order like the reference's introsort
-    # input order is b-tree order — ties are rare and benign.
+    # Sort by weight descending (invalid last) with a stable sort over
+    # the chains in key (b-tree) order, as the oracle does: equal
+    # weights — repeat copies — keep reference-position order, not
+    # slot (creation) order. slot_k lists the slots in key order, the
+    # unused slots after them, so it is a permutation of [0, C).
     sort_w = jnp.where(heavy, w_by_slot, -1)
-    order = jnp.argsort(-sort_w, axis=1, stable=True).astype(jnp.int32)
+    iota_c = jnp.arange(C, dtype=jnp.int32)
+    slot_k = jnp.where(iota_c[None, :] < ch.n[:, None], ch.slot,
+                       iota_c[None, :])
+    ko = slot_k[:, :, None] == iota_c[None, None, :]   # [B, Ckey, Cslot]
+    w_k = jnp.sum(jnp.where(ko, sort_w[:, None, :], 0), axis=2,
+                  dtype=sort_w.dtype)
+    ok = jnp.argsort(-w_k, axis=1, stable=True).astype(jnp.int32)
+    order = jnp.sum(jnp.where(ok[:, :, None] == iota_c[None, None, :],
+                              slot_k[:, None, :], 0), axis=2,
+                    dtype=jnp.int32)
     n_valid = heavy.sum(axis=1).astype(jnp.int32)
 
-    # apply the permutation one-hot (take_along_axis over [B, C] is a
-    # per-lane serialized row gather on TPU; see ops/occ._take_c)
-    iota_c = jnp.arange(C, dtype=jnp.int32)
+    # apply the permutation one-hot instead of take_along_axis over
+    # [B, C] (see ops/occ._take_c)
     po = order[:, :, None] == iota_c[None, None, :]    # [B, Cpos, Cslot]
 
     def by_pos(arr):                                   # [B, C] slot maj.

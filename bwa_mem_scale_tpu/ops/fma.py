@@ -7,7 +7,7 @@ src/FMI_search.h:101-117, build src/FMI_search.cpp:78-153) and
 `last_smem_t` (13-mer -> final interval, consumed by the 3rd-pass seed
 strategy, src/FMI_search.h:119-133).
 
-TPU-native formulation: ONE ladder table
+Device formulation: ONE ladder table
     ladder_{k,l,s}[4^K, K]   (k, l, s) after extending the j-th base
                              of each K-mer, j = 1..K
 built on-device by running the very same forward-extension kernel the

@@ -1,6 +1,6 @@
 """Batched local Smith-Waterman (ksw_align2) on device — mate rescue.
 
-One alignment problem per lane, the TPU analogue of the reference's
+One alignment problem per lane, the batched analogue of the reference's
 inter-sequence kswv batch kernel (src/kswv.cpp:372-934) driven from
 mem_sam_pe_batch. The row recurrence vectorizes over (lane, query)
 with the insertion term F resolved by a prefix max (lax.cummax):

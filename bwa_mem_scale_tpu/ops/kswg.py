@@ -1,6 +1,6 @@
 """Batched banded global alignment with traceback (device CIGAR kernel).
 
-TPU formulation of ksw_global2 (src/ksw.cpp:558-672): the DP runs one
+Batched formulation of ksw_global2 (src/ksw.cpp:558-672): the DP runs one
 pair per lane with the query axis vectorized (same prefix-max F trick as
 ops/bsw.py but with -inf semantics and strict-inequality direction
 bits); the direction matrix is banked per row in HBM and a lockstep

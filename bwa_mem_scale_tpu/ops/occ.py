@@ -1,12 +1,12 @@
 """Device FM-index: batched occ counting and backward extension.
 
-The TPU-native formulation of the reference's GET_OCC/backwardExt hot
+The device formulation of the reference's GET_OCC/backwardExt hot
 loop (src/FMI_search.h:76-83, src/FMI_search.cpp:2029-2056): the
 checkpointed BWT lives in HBM as
     cp_count [nblocks, 4]  (int32/int64)  exclusive base counts
     cp_mask  [nblocks, 4]  (uint32)       one-hot 32-bp block bitmasks
 and occ(p, c) for a batch of positions is one row gather plus a masked
-population count — pure VPU work over thousands of lanes.
+population count — elementwise work over thousands of lanes.
 
 All functions are shape-polymorphic over a leading batch shape and are
 designed to be called inside jit/while_loop bodies.
@@ -32,9 +32,9 @@ class DeviceFMIndex:
 
     For int32-position genomes, the checkpoint counts and bitmasks are
     fused into one [nb, 8] int32 table so each occ(p, *) is a single
-    row gather (row gathers are the dominant cost of the seeding
-    sweeps on TPU — the analogue of the reference packing CP_OCC into
-    one cache line, src/FMI_search.h:64-68)."""
+    row gather (the dependent row fetch is the seeding sweeps' inner
+    step — the analogue of the reference packing CP_OCC into one
+    cache line, src/FMI_search.h:64-68)."""
 
     count: jax.Array        # [5] pos_dtype
     cp_fused: jax.Array     # [nb, 8] int32 (counts | bitcast masks),
@@ -143,16 +143,12 @@ class DeviceFMIndex:
 
     @staticmethod
     def _pack_ref(ref: np.ndarray) -> np.ndarray:
-        """XLA TPU cannot gather into a 1-D operand whose index space
-        exceeds 32 bits ("indices exceed 32-bits" at AOT compile, hit
-        at hg38 scale on real hardware). Pack the byte reference
-        [n] -> [ceil(n/128), 128]: row indices fit int32, the lane is
-        selected one-hot (ref_byte). 128 (not 16) wide because a u8
-        operand's minor dim pads to the 128-lane tile — a [n/16, 16]
-        pack forced a layout copy 8x the logical size inside any
-        program that reshaped it (24.8 GB for hg38's forward strand,
-        OOM at compile), and lets ref_windows' [*, 128] row view be a
-        no-op reshape.
+        """Pack a byte reference whose flat index space exceeds 32
+        bits (hg38 scale) as [ceil(n/128), 128]: row indices fit
+        int32 and the lane is selected one-hot (ref_byte); the
+        [*, 128] row view also serves ref_windows as a no-op reshape.
+        This pack worked around the previous accelerator's gather
+        index limit; whether the GPU needs it is an open question.
 
         Either layout is zero-padded to a 128-byte multiple so the
         block row-gather window fetch (ops/window.ref_windows) can
@@ -236,8 +232,8 @@ class DeviceFMIndex:
         )
 
 
-# Above this element count a 1-D ref can't be gathered on TPU (XLA
-# rejects >32-bit index spaces); DeviceFMIndex packs it [n/16, 16].
+# Above this element count DeviceFMIndex packs the ref [n/128, 128]
+# so gather indices fit int32.
 REF_2D_LIMIT = (1 << 31) - (1 << 20)
 
 
@@ -267,8 +263,8 @@ def ref_byte(ref: jax.Array, pos: jax.Array, l_pac: int) -> jax.Array:
     Supports the device layouts: full fw+rc byte array, forward-only
     ([l_pac], hg38 HBM residency plan — the reverse-complement strand
     is computed on the fly from the mirrored position), and either of
-    those packed 2-D ([n/16, 16]) when the flat index space exceeds
-    32 bits (TPU gather limit; see _ref_fetch). The ref holds only
+    those packed 2-D ([n/128, 128]) when the flat index space exceeds
+    32 bits (see _ref_fetch). The ref holds only
     0..3 because index construction fills ambiguity holes with random
     bases, matching the reference's pac, src/bntseq.cpp."""
     l2 = 2 * l_pac
@@ -358,10 +354,9 @@ def _suffix_sum(v):
 
 def _take_c(v, i):
     """v[..., i] for a per-lane small-axis index, as a one-hot masked
-    reduction. XLA TPU lowers take_along_axis/gather to a serial
-    per-row loop (~4-10 ns/row measured, tools/probe_loop_cost.py);
-    over a W<=64 minor axis the masked sum is pure VPU work and
-    effectively free at machine widths."""
+    reduction instead of take_along_axis/gather: over a W<=64 minor
+    axis the masked sum is elementwise work. (Chosen for the previous
+    accelerator; not yet measured on the GPU.)"""
     W = v.shape[-1]
     iota = jnp.arange(W, dtype=jnp.int32)
     sel = iota == i[..., None].astype(jnp.int32)
@@ -585,9 +580,7 @@ def occ_b_and_base(fmi: DeviceFMIndex, pos: jax.Array):
     Unlike occ_and_base it popcounts ONLY the loaded base's mask and,
     on the int64 layout, one-hot-selects the low/high count words
     BEFORE widening — occ_and_base materialized [N, 4] int64 counts +
-    4 popcounts per tick, ~2x the vector traffic the step needs
-    (tools/probe_sal_hg38: sa_lookup was 1.48 s/tick at 2M lanes,
-    0.6 s of it gathers)."""
+    4 popcounts per tick, ~2x the vector traffic the step needs."""
     block = (pos >> CP_SHIFT).astype(jnp.int32)
     y = (pos & CP_MASK).astype(jnp.uint32)
     if fmi.cp_fused is not None:

@@ -1,6 +1,6 @@
 """Batched suffix-array lookup (SAL) on device.
 
-TPU-native form of the reference's compressed SA resolution
+Device form of the reference's compressed SA resolution
 (get_sa_entry_compressed / get_sa_entries_prefetch,
 src/FMI_search.cpp:2107-2379): every SMEM's SA interval is sampled into
 at most max_occ coordinates; non-sampled rows are recovered by a
@@ -61,9 +61,7 @@ def sa_lookup(fmi: DeviceFMIndex, pos: jax.Array, valid: jax.Array
         hit_sentinel = active & (b == 4)
         done_val = jnp.where(hit_sentinel, offset, done_val)
         active = active & ~hit_sentinel
-        # one-hot selects (not gathers): XLA TPU lowers per-lane
-        # indexed gathers to a ~4-10 ns/row serial loop; at [B, C]
-        # widths that is ms-class per LF step (probe_loop_cost.py)
+        # one-hot selects, not per-lane gathers (see ops/occ._take_c)
         bc = jnp.clip(b, 0, 3)
         cnt_b = _take_c(fmi.count[:4], bc)
         sp_new = cnt_b + occ_b
@@ -183,8 +181,8 @@ def expand_and_lookup(fmi: DeviceFMIndex, smems: SmemBuf, max_occ: int,
     overflow = overflow | ((tot_c > K) & (total > 0))
     j = jnp.arange(K, dtype=jnp.int32)
     # fb[j] = #{b: tot_c[b] <= j} (searchsorted-right). The direct
-    # jnp.searchsorted lowered to a [K, B] broadcast compare — 12 ms
-    # per batch at K=128k (chip trace, round 5). tot_c is monotone,
+    # jnp.searchsorted lowers to a [K, B] broadcast compare. tot_c is
+    # monotone,
     # so a B-row scatter-max of read ids at their tot_c positions
     # plus a cummax forward-fill computes the same function.
     fb = jax.lax.cummax(
@@ -195,10 +193,8 @@ def expand_and_lookup(fmi: DeviceFMIndex, smems: SmemBuf, max_occ: int,
     fc = j - (tot_c - total)[fbc]
     f_valid = j < grand
     fcc = jnp.clip(fc, 0, C - 1)
-    # 1-D flat gather: the 2-D advanced-index form pos[fbc, fcc]
-    # lowers to a ~93 ns/lane serialized fetch (12 ms/batch at
-    # K=128k, chip trace round 5); the flattened form is a plain
-    # 1-D element gather
+    # 1-D flat gather instead of the 2-D advanced-index form
+    # pos[fbc, fcc]
     pos_f = pos.reshape(B * C)[fbc * C + fcc]    # [K] gather
     rbeg_f = sa_lookup(fmi, pos_f, f_valid)
     # scatter back into the [B, C] grid (K rows; empty slots stay 0)

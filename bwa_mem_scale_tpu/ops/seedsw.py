@@ -1,6 +1,6 @@
 """Device seed-SW validation for the long-read regime.
 
-TPU-native mem_flt_chained_seeds (src/bwamem.cpp:494-526 +
+Device mem_flt_chained_seeds (src/bwamem.cpp:494-526 +
 mem_seed_sw src/bwamem.cpp:423-451): every short seed (< 200 bp) of a
 kept chain is re-scored by a plain local Smith-Waterman over a small
 window (seed +/- 50 bp on both axes); seeds whose window score falls

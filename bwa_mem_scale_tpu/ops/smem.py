@@ -85,8 +85,8 @@ class SmemBuf(NamedTuple):
 def compact_indices(flat, T: int):
     """Indices of the first T set lanes of the bool vector `flat`, in
     lane order — the O(n) cumsum+scatter equivalent of
-    argsort(where(flat, idx, BIG))[:T] (a 1M-lane argsort costs tens
-    of ms on TPU; this is one pass). Returns (order [T] int32,
+    argsort(where(flat, idx, BIG))[:T] in one pass instead of a
+    1M-lane sort. Returns (order [T] int32,
     valid [T] bool); order is 0 on invalid slots."""
     n = flat.shape[0]
     rank = jnp.cumsum(flat.astype(jnp.int32)) - 1
@@ -580,8 +580,7 @@ def collect_smems_device(fmi: DeviceFMIndex, codes, lens, *,
     valid = jnp.concatenate(
         [jnp.arange(b.m.shape[1])[None, :] < b.cnt[:, None]
          for b in parts], axis=1)
-    # int32 key: m, n < 2^15 for any supported read length (int64
-    # compare/sort is emulated and ~2x slower on TPU)
+    # int32 key: m, n < 2^15 for any supported read length
     key = (combined.m << 16) | combined.n
     key = jnp.where(valid, key, jnp.int32(2 ** 30))
     order = jnp.argsort(key, axis=1)

@@ -1,13 +1,9 @@
-"""Scatter-free (one-hot) SMEM machines — round-3 rebuild of
-ops/smem_rl.py driven by chip measurements (tools/probe_loop_cost.py):
-
-  - XLA TPU lowers every gather/scatter with per-lane indices to a
-    serial ~4-10 ns/row loop; the old machine tick carried ~15 such
-    ops over [T]-row index sets, which is where its measured
-    0.84 ms/tick went (NOT the occ fetch, NOT while-loop overhead —
-    pure vector arithmetic in a fori_loop measures ~0 us/tick).
-  - One-hot masked selects/writes over a [T, L] panel are pure VPU
-    work and measure ~free at machine widths.
+"""Scatter-free (one-hot) SMEM machines — a rebuild of
+ops/smem_rl.py that replaces its ~15 per-lane gathers and scatters
+per tick with one-hot masked selects and writes over a [T, L] panel
+(elementwise work). The previous accelerator lowered per-lane
+indexed ops to serial loops; on the GPU the trade is not yet
+measured.
 
 So this machine keeps exactly ONE per-lane-indexed op per tick — the
 fused checkpoint-row gather (backward extension, the irreducible
@@ -30,12 +26,10 @@ getSMEMsOnePosOneThread, src/FMI_search.cpp:1372-1660); output is
 bit-identical (tests/test_smem_oh.py asserts equality against the
 readlane machine and transitively against the oracle).
 
-The K-step fold (index/kstep.py bigram/trigram tables) is supported
-but LOSES on chip: the wider checkpoint rows (160/672 B vs 32 B)
-cost more than the saved ticks (row gathers are NOT width-free —
-BENCH_r04: 14,836 reads/s off vs 12,955 K2 vs 11,565 K3, the third
-straight on-chip loss). bench.py keeps the measured A/B harness
-behind BENCH_KSTEP; the default is off.
+The K-step fold (index/kstep.py bigram/trigram tables) is supported:
+wider checkpoint rows (160/672 B vs 32 B) for fewer ticks. It lost on
+the previous accelerator and is off by default; on the GPU it is not
+measured (bench.py keeps the A/B harness behind BENCH_KSTEP).
 """
 
 from __future__ import annotations
@@ -138,8 +132,7 @@ class _Stacks:
         advances per `do`), so the per-entry one-hot selects are
         collision-free and their sum-select equals the sequential
         write order. The naive per-entry form emitted 2*E fused
-        kernels per field per tick; kernel launch overhead was ~30%
-        of the tick (chip trace, round 5)."""
+        kernels per field per tick."""
         st = dict(st)
         SD = st["k"][0].shape[1]
         iota = jnp.arange(SD, dtype=jnp.int32)[None, :]
@@ -813,9 +806,8 @@ def collect_smems_oh(fmi: DeviceFMIndex, codes, lens, *,
          for b in parts], axis=1)
     key = (combined.m << 16) | combined.n
     key = jnp.where(valid, key, jnp.int32(2 ** 30))
-    # variadic sort: payloads ride the comparator network — the
-    # argsort + 5x take_along_axis form cost 12 ms/batch in per-lane
-    # row gathers (chip trace, round 5)
+    # variadic sort: payloads ride the comparator network instead of
+    # an argsort + 5x take_along_axis
     _, m_, n_, k_, l_, s_ = jax.lax.sort(
         (key, combined.m, combined.n, combined.k, combined.l,
          combined.s), dimension=1, num_keys=1)

@@ -9,10 +9,8 @@ lane executing exactly one FM extension per tick of a lockstep state
 machine that replicates getSMEMsOnePosOneThread's control flow
 (src/FMI_search.cpp:1372-1660) including its quirks (the double push
 of the failing forward interval; the backward scan's first-hit break
-and distinct-s tail; next_x = j on interval failure). Dependent
-4096-lane extension chains measure ~0.44 ms/tick, and per-read
-FM-op counts are the reference's own (~2-4 L), so seeding drops from
-~1.7 s to a few hundred ms per batch.
+and distinct-s tail; next_x = j on interval failure). Per-read
+FM-op counts are the reference's own (~2-4 L).
 
 State per lane: phase, x (restart), j (column), the forward interval,
 two interval stacks (prev/curr as structure-of-arrays), scan index
@@ -65,7 +63,7 @@ def one_pos_machine(fmi: DeviceFMIndex, codes, lens, t_read, t_x,
 
     `lanes` (default: one lane per task) sets the worker-lane count:
     with lanes < n_tasks, a lane that finishes its task pulls the next
-    unassigned one from the backlog — the TPU equivalent of kt_for's
+    unassigned one from the backlog — the lockstep equivalent of kt_for's
     dynamic scheduling (src/kthread.cpp:41-77). Lockstep machines
     otherwise pay the slowest lane's tick count for the whole batch
     (measured p50 249 / max 619 ticks at B=4096, i.e. ~60% idle
@@ -118,11 +116,8 @@ def one_pos_machine(fmi: DeviceFMIndex, codes, lens, t_read, t_x,
     # stored per entry: every entry of one stack generation shares it
     # (x for the forward pushes, the round's j for backward keeps), so
     # it lives in a per-lane scalar mA.
-    # Layout experiments (both measured SLOWER on TPU v5e; keep the
-    # four separate [T, L] columns):
-    # - int64 pair packing: 1.14 -> 2.39 ms/tick (int64 emulated)
-    # - [T, L, 4] int32 array-of-structs with [T, 4]-slice scatters:
-    #   0.84 -> 1.12 ms/tick (row-slice scatter is NOT one cheap op)
+    # Four separate [T, L] columns; the [T, L, 4] array-of-structs
+    # layout below is kept behind `aos` (not measured on the GPU).
     aos = False
 
     def stack():
@@ -581,10 +576,9 @@ def one_pos_machine(fmi: DeviceFMIndex, codes, lens, t_read, t_x,
                 phase, length=5).astype(jnp.int64)
         return st2
 
-    # per-iteration unroll (chip A/B knob): the tick's gathers still
-    # serialize, but each while iteration also pays cond-reduction and
-    # state-threading overhead on this platform; DONE lanes no-op, so
-    # extra sub-ticks are safe.
+    # per-iteration unroll (A/B knob): each while iteration pays a
+    # cond reduction and state threading; DONE lanes no-op, so extra
+    # sub-ticks are safe.
     import os as _os
     _unroll = max(int(_os.environ.get("BWATPU_MACHINE_UNROLL", 1)), 1)
 
@@ -749,10 +743,9 @@ def seed_strategy_machine(fmi: DeviceFMIndex, codes, lens,
                     x=xb, j=j, ck=ck, cl=cl, cs=cs,
                     tick=st["tick"] + 1, out=out)
 
-    # per-iteration unroll (chip A/B knob): the tick's gathers still
-    # serialize, but each while iteration also pays cond-reduction and
-    # state-threading overhead on this platform; DONE lanes no-op, so
-    # extra sub-ticks are safe.
+    # per-iteration unroll (A/B knob): each while iteration pays a
+    # cond reduction and state threading; DONE lanes no-op, so extra
+    # sub-ticks are safe.
     import os as _os
     _unroll = max(int(_os.environ.get("BWATPU_MACHINE_UNROLL", 1)), 1)
 
@@ -833,8 +826,7 @@ def collect_smems_rl(fmi: DeviceFMIndex, codes, lens, *,
     valid = jnp.concatenate(
         [jnp.arange(b.m.shape[1])[None, :] < b.cnt[:, None]
          for b in parts], axis=1)
-    # int32 key: m, n < 2^15 for any supported read length (int64
-    # compare/sort is emulated and ~2x slower on TPU)
+    # int32 key: m, n < 2^15 for any supported read length
     key = (combined.m << 16) | combined.n
     key = jnp.where(valid, key, jnp.int32(2 ** 30))
     order = jnp.argsort(key, axis=1)

@@ -3,15 +3,12 @@
 The extension pipeline stages contiguous sequence windows — query
 prefixes/suffixes and reference target spans (the SoA SeqPair buffers
 of mem_chain2aln_across_reads_V2, src/bwamem.cpp:2976-3188). A naive
-`arr[start[p] + iota]` is a per-element gather, which XLA lowers to a
-~4-10 ns/element serial loop on TPU (measured, tools/probe_loop_cost
-.py) — at 16 k pairs x 300 B windows that was 0.13 s/batch, a third
-of the whole extend program.
+`arr[start[p] + iota]` is a per-element gather over 16 k pairs x
+300 B windows per batch.
 
 This module fetches each lane's window as a handful of consecutive
-128-byte ROW gathers (rows are the fast gather shape: ~10 ns/row) and
-realigns the sub-row offset with log2(W) static conditional rolls
-(pure VPU selects). Net: O(W/128) gather rows per lane instead of
+128-byte ROW gathers and realigns the sub-row offset with log2(W)
+static conditional rolls (elementwise selects). Net: O(W/128) gather rows per lane instead of
 O(W) gather elements.
 
 Contract shared with the per-element path it replaces: elements of a

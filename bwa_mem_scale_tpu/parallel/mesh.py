@@ -1,9 +1,9 @@
 """Multi-chip execution: read-axis data parallelism over a device mesh.
 
 The reference scales by thread pools + process-shared index memory
-(kt_for src/kthread.cpp:79, bwa_shm src/bwa_shm.cpp); the TPU-native
+(kt_for src/kthread.cpp:79, bwa_shm src/bwa_shm.cpp); the device
 equivalent is a jax.sharding.Mesh with the read batch sharded over the
-'dp' axis and the index replicated in every chip's HBM (SURVEY.md
+'dp' axis and the index replicated in every device's memory (SURVEY.md
 section 5.8). shard_map keeps each chip's seeding while-loops local —
 no per-iteration collectives; chips retire their shards independently.
 

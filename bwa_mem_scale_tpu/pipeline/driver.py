@@ -1,6 +1,6 @@
 """Streaming alignment driver: FASTQ -> batches -> device -> SAM.
 
-The TPU equivalent of the reference's 3-stage ktp pipeline
+The device equivalent of the reference's 3-stage ktp pipeline
 (src/fastmap.cpp:307-509): a reader thread prefetches fixed-bp chunks
 (the -K determinism anchor), the main loop dispatches device batches
 (async under jit), and finalization/SAM text runs while the next batch
@@ -90,7 +90,7 @@ def run_alignment(aligner, fastq_paths: List[str], out,
     its own SAM part. Global read ordinals are preserved (the
     hash_64 MAPQ tiebreaks see the same ids as a single-host run, so
     part files byte-match the corresponding single-host records) —
-    the TPU-native analogue of the reference's multi-process runs
+    the analogue of the reference's multi-process runs
     against one shm index store (src/bwa_shm.cpp), which likewise
     emit one output per process. Requires a fixed batch_reads
     (chunk_bp batching would make batch boundaries host-dependent)."""

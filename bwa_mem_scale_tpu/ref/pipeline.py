@@ -2,7 +2,7 @@
 
 Chains the oracle stages exactly as the reference's per-batch kernels do
 (mem_kernel1_core -> mem_kernel2_core -> worker_sam SE path,
-src/bwamem.cpp:1209-1850). Slow; used as the specification for the TPU
+src/bwamem.cpp:1209-1850). Slow; used as the specification for the device
 pipeline and in tests.
 """
 

@@ -6,7 +6,7 @@ mapper processes share one RAM copy, with a -g <GB> budget choosing
 which optional accelerators get loaded (src/bwa_shm.{h,cpp}; budget
 order src/bwa_shm.cpp:1585-1770; state machine src/bwa_shm.h:108-149).
 
-TPU-native equivalent: artifacts are staged once into a tmpfs
+Equivalent here: artifacts are staged once into a tmpfs
 directory (default /dev/shm) as raw little-endian .npy pieces plus a
 manifest carrying a state machine (LOADING -> AVAIL) and source
 identity (path, mtime, size). `mem` attaches with zero-copy

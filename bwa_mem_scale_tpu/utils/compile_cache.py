@@ -2,9 +2,11 @@
 reference's shm-resident index: pay the multi-minute compile once per
 program shape, stream it back on every later run).
 
-Enabled by bench.py, the CLI, and tools/ probes; tests configure their
-own cache dir in conftest.py. Opt out with BWATPU_NO_COMPILE_CACHE=1
-(e.g. when timing cold compiles on purpose).
+Enabled by bench.py, chip_smoke.py, the CLI and the test suite. Where
+JAX_COMPILATION_CACHE_DIR is set, JAX keeps the cache there and this
+module sets no directory; otherwise the cache is <checkout>/.jax_cache.
+Opt out with BWATPU_NO_COMPILE_CACHE=1 (e.g. when timing cold compiles
+on purpose).
 """
 
 import os
@@ -14,10 +16,11 @@ _DEFAULT_DIR = os.path.join(
         os.path.abspath(__file__)))), ".jax_cache")
 
 
-def enable_compile_cache(path: str = None):
+def enable_compile_cache():
     if os.environ.get("BWATPU_NO_COMPILE_CACHE"):
         return
     import jax
-    jax.config.update("jax_compilation_cache_dir", path or _DEFAULT_DIR)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        jax.config.update("jax_compilation_cache_dir", _DEFAULT_DIR)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
     jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)

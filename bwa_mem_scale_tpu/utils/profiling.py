@@ -37,9 +37,10 @@ class PhaseProfiler:
                 print(f"[trace {t0 - _T0:9.3f} +{dt:7.3f}] {name}",
                       file=sys.stderr)
 
-    def report(self, file=sys.stderr):
+    def report(self, file=None):
         if not self.totals:
             return
+        file = file or sys.stderr
         total = sum(self.totals.values())
         print("\nRuntime profile (seconds):", file=file)
         width = max(len(k) for k in self.totals)

@@ -8,7 +8,7 @@
 // ksw_global2 (src/bwa.cpp:380-470). Semantics are ported bit-for-bit
 // from the tested Python oracle (bwa_mem_scale_tpu/ref/finalize.py,
 // pipeline/finalize.py) — the Python path stays as the differential
-// oracle and fallback. The TPU build keeps this stage on the host
+// oracle and fallback. The device build keeps this stage on the host
 // because it is object-/string-shaped work the reference also runs
 // native; at bench scale the Python loop was ~60% of end-to-end wall
 // on this one-core box.

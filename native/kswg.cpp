@@ -6,7 +6,7 @@
 // (reference: src/ksw.cpp:558-672) driven by bwa_gen_cigar2
 // (src/bwa.cpp:380-470) under mem_reg2aln's band-doubling retry
 // (src/bwamem.cpp:2533-2624). Semantics are ported from the tested
-// Python oracle (bwa_mem_scale_tpu/ref/ksw.py) bit-for-bit; the TPU
+// Python oracle (bwa_mem_scale_tpu/ref/ksw.py) bit-for-bit; the device
 // build keeps CIGARs on the host because each job is a tiny
 // (<=len x band) DP — microseconds in native code — while a device
 // round trip costs milliseconds of queue serialization.

@@ -86,9 +86,8 @@ def test_int64_sal_and_occ_bit_equal(small_index):
 
 
 def test_ref_byte_2d_layout():
-    """hg38-class refs are packed [n/16, 16] (XLA TPU rejects 1-D
-    gathers whose index space exceeds 32 bits); ref_byte must be
-    bit-equal across layouts, fw-only included."""
+    """hg38-class refs are packed 2-D so gather indices fit int32;
+    ref_byte must be bit-equal across layouts, fw-only included."""
     import numpy as np
     import jax.numpy as jnp
     from bwa_mem_scale_tpu.ops.occ import ref_byte

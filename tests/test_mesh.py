@@ -69,8 +69,7 @@ def _sam_body(text):
 
 def test_mesh_mem_end_to_end_sam_equal(small_index):
     """The CLI-level pipeline (EMF probe + extend + finalize + SE SAM)
-    must emit byte-identical SAM on 1 device and on an 8-device mesh
-    (VERDICT round-1 item 5)."""
+    must emit byte-identical SAM on 1 device and on an 8-device mesh."""
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
     import io
@@ -143,7 +142,7 @@ def test_mesh_device_emf_probe_path(small_index):
 
 
 def test_mesh_pe_end_to_end(small_index):
-    """Paired-end under the mesh (VERDICT r2 item 7): interleaved
+    """Paired-end under the mesh: interleaved
     proper pairs through align_pairs_and_finalize must match the
     unsharded aligner record-for-record, mate fields included."""
     if len(jax.devices()) < 8:

@@ -127,3 +127,34 @@ def test_native_pe_sam_text_matches_python():
                                   i, mate=mates[i])
         assert sam[i] == want, (
             f"read {i}:\n native: {sam[i]!r}\n python: {want!r}")
+
+
+def test_native_pe_overflow_retries_sam_matches_python():
+    """Pairs whose candidates exceed max_regs take the overflow-retry
+    path (ov_regs); the native PE SAM text must equal the Python path
+    byte for byte, including the retried reads' frac_rep."""
+    bns = make_genome(60000, seed=36)
+    idx = build_index(bns)
+    cfg = PipelineConfig(max_coords=64, max_chains=16,
+                         max_seeds_per_chain=8, max_regs=2)
+    codes, lens = _sim(bns, 24, seed=12, err=0.04)
+    B = codes.shape[0]
+    ctx = dict(names=[b"q%d" % i for i in range(B)],
+               quals=[b"I" * L] * B, rg_id=None)
+    al = TpuAligner(idx, MemOptions(), cfg)
+    fetched = al.fetch_pairs(al.dispatch_pairs(codes, lens))
+    assert fetched[0] == "raw" and fetched[-1], "no overflow retries"
+    # a device fetch may hand back a read-only, column-major buffer,
+    # whose meta[:, 0] is then a contiguous read-only view
+    meta = np.asfortranarray(fetched[5])
+    meta.flags.writeable = False
+    fetched = fetched[:5] + (meta,) + fetched[6:]
+    sam_n, _ = al.pe_post(fetched, 40, sam_ctx=ctx)
+    al2 = TpuAligner(idx, MemOptions(), cfg)
+    os.environ["BWA_TPU_NO_NATIVE_PE"] = "1"
+    try:
+        sam_p, _ = al2.pe_post(al2.fetch_pairs(al2.dispatch_pairs(
+            codes, lens)), 40, sam_ctx=ctx)
+    finally:
+        os.environ.pop("BWA_TPU_NO_NATIVE_PE", None)
+    assert sam_n == sam_p

@@ -1,7 +1,6 @@
 #!/bin/bash
-# Measure real single-core bwa-mem2 throughput on this box — the
-# vs_baseline denominator (VERDICT r4 weak #5: the 330k reads/s
-# 40-core figure was an unvalidated estimate). Usage:
+# Measure real single-core bwa-mem2 throughput on this CPU host — the
+# bench's vs_baseline denominator. Usage:
 #   bash tools/bench_bwamem2.sh <ref.fa> <reads.fq> [bin]
 # Builds the bwa-mem2 index next to ref.fa if missing, runs
 # `mem -t 1` timed, prints reads/s.

@@ -2,7 +2,7 @@
 
 Runs the same code path as `cli index` (parse_fasta -> build_index ->
 save_index) but reports per-phase wall time and peak memory, which is
-how the hg38-scale build (VERDICT item 1) is validated and measured.
+how the hg38-scale build is validated and measured.
 
   python tools/build_big_index.py ref.fa -p prefix
 """

@@ -5,6 +5,9 @@
 
 PE mode writes proper FR pairs (insert ~ N(400, 60), both mates
 err/indel-mutated) to out.fq / --pe path.
+
+Read names carry the simulated 1-based leftmost reference position:
+`sim<i>_<pos>` (SE) and `sim<i>_<pos1>_<pos2>` (PE, mate 1 then mate 2).
 """
 
 from __future__ import annotations
@@ -87,8 +90,9 @@ def main():
                 b = b.translate(COMP)[::-1]
                 if len(a) < 30 or len(b) < 30:
                     continue
-                f1.write(f"@sim{i}\n{a}\n+\n{'I' * len(a)}\n")
-                f2.write(f"@sim{i}\n{b}\n+\n{'I' * len(b)}\n")
+                name = f"sim{i}_{p + 1}_{p + isz - L + 1}"
+                f1.write(f"@{name}\n{a}\n+\n{'I' * len(a)}\n")
+                f2.write(f"@{name}\n{b}\n+\n{'I' * len(b)}\n")
             else:
                 if len(s) <= L + 8:
                     continue
@@ -99,7 +103,7 @@ def main():
                     continue
                 if i % 2:
                     w = w.translate(COMP)[::-1]
-                f1.write(f"@sim{i}\n{w}\n+\n{'I' * len(w)}\n")
+                f1.write(f"@sim{i}_{p + 1}\n{w}\n+\n{'I' * len(w)}\n")
     if f2:
         f2.close()
 

@@ -13,8 +13,8 @@ mesh and the cross-process comparison cannot execute. The sharded
 program itself (parallel/mesh.py) is validated on a single-process
 8-virtual-device mesh by __graft_entry__.dryrun_multichip and the
 mesh tests; this script becomes the real multi-host acceptance test
-on hardware with a working multi-process backend (TPU pods, or a jax
-build with CPU gloo collectives).
+on hardware with a working multi-process backend (several GPU hosts,
+or a jax build with CPU gloo collectives).
 
 Orchestrator:  python tools/multiproc_dp_test.py
 Worker:        python tools/multiproc_dp_test.py --worker PID PORT
